@@ -3,7 +3,8 @@
 Writes a synthetic SRTM tile, then answers "can A see B?" for a batch of
 point pairs, computes a full-circle viewshed raster around a summit, and
 saves it as a georeferenced WGS84 GeoTIFF that QGIS/GDAL open directly.
-Runs anywhere (forces the CPU backend). Usage:
+Runs on JAX's default backend (set JAX_PLATFORMS=cpu for the CPU).
+Usage:
 
     python examples/gis_analysis.py [viewshed.tif]
 """
@@ -14,18 +15,14 @@ import sys
 import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np
-import jax
 
-jax.config.update("jax_platforms", "cpu")
-
-from horizonator_tpu import horizonator
-from horizonator_tpu.dem import hgt
-from horizonator_tpu.geotiff import write_geotiff
-from horizonator_tpu.ops import viewshed_grid
-from horizonator_tpu.render import RenderParams
+from horizonator_jax import horizonator
+from horizonator_jax.dem import hgt
+from horizonator_jax.geotiff import write_geotiff
+from horizonator_jax.ops import viewshed_grid
+from horizonator_jax.render import RenderParams
 
 
 def synthetic_tile(path):

@@ -13,15 +13,11 @@ import sys
 import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np
-import jax
 
-jax.config.update("jax_platforms", "cpu")
-
-from horizonator_tpu import horizonator
-from horizonator_tpu.dem import hgt
+from horizonator_jax import horizonator
+from horizonator_jax.dem import hgt
 
 
 def synthetic_tile(path):
@@ -61,7 +57,7 @@ def main():
     print(f"wrote {prefix}_shadows.png (cast shadows, sun az 90 alt 10)")
 
     # insolation raster: hours of direct sun per DEM cell over one day
-    from horizonator_tpu.ops import sun_hours
+    from horizonator_jax.ops import sun_hours
     hours = np.asarray(sun_hours(
         h.mosaic.grid, cells_per_deg=h.mosaic.cells_per_deg,
         lat_deg=34.55, lon_deg=-117.45, date="2026-12-21", samples=12))

@@ -1,8 +1,12 @@
-"""Multi-chip sharding demo on a virtual 8-device CPU mesh.
+"""Multi-device sharding demo through the public API.
 
-The same `jax.sharding.Mesh` code drives real TPU pods; here XLA's
-host-platform device-count flag fakes 8 devices so the sharded paths run
-anywhere. Shows the two public multi-chip entry points:
+Uses every visible device: the cards of a multi-GPU host, or a virtual CPU
+mesh when run as
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
+        python examples/multichip_sweep.py
+
+Shows the two public multi-device entry points:
 
 - `render_batch(mesh=...)`: viewpoint-batch x azimuth-wedge sharding;
 - `viewshed_sweep(mesh=...)`: many-viewpoint horizon sweeps.
@@ -15,24 +19,16 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8").strip()
-os.environ["JAX_PLATFORMS"] = "cpu"
-
 import tempfile
 
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-
 from jax.sharding import Mesh
 
-from horizonator_tpu import horizonator
-from horizonator_tpu.dem import hgt
-from horizonator_tpu.ops import viewshed_sweep
+from horizonator_jax import horizonator
+from horizonator_jax.dem import hgt
+from horizonator_jax.ops import viewshed_sweep
 
 
 def synthetic_tile(path):
@@ -54,8 +50,12 @@ def main():
     h = horizonator(34.40, -117.45, 256, 96,
                     dir_dems=demdir, render_radius_m=15000.0)
 
-    # 8 viewpoints sharded (batch=4, az=2) over the 8 virtual devices
-    mesh = Mesh(np.array(jax.devices()).reshape(4, 2), ("batch", "az"))
+    # 8 viewpoints sharded over every device: an azimuth-wedge axis of 2
+    # when the device count is even, the rest on the batch axis
+    n_dev = len(jax.devices())
+    n_az = 2 if n_dev % 2 == 0 else 1
+    mesh = Mesh(np.array(jax.devices()).reshape(n_dev // n_az, n_az),
+                ("batch", "az"))
     lats = list(np.linspace(34.38, 34.52, 8))
     lons = [-117.45] * 8
     imgs, ranges = h.render_batch(-180.0, 180.0, lats, lons,

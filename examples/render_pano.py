@@ -1,6 +1,7 @@
 """Minimal end-to-end render: synthetic SRTM tile -> panorama PNG.
 
-Runs anywhere (forces the CPU backend); with real `.hgt` tiles in
+Runs on JAX's default backend (set JAX_PLATFORMS=cpu to run it on the
+CPU); with real `.hgt` tiles in
 ~/.horizonator/DEMs_SRTM3 drop the synthetic block and point `dir_dems`
 at your data (or omit it). Usage:
 
@@ -12,15 +13,11 @@ import sys
 import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np
-import jax
 
-jax.config.update("jax_platforms", "cpu")
-
-from horizonator_tpu import horizonator
-from horizonator_tpu.dem import hgt
+from horizonator_jax import horizonator
+from horizonator_jax.dem import hgt
 
 
 def synthetic_tile(path):

@@ -36,7 +36,7 @@ GROUPS = [
      "tests/test_geotiff.py", "tests/test_annotate.py", "tests/test_dem.py",
      "tests/test_geometry.py", "tests/test_native.py",
      "tests/test_settings_gpx.py", "tests/test_tiles.py",
-     "tests/test_viewer.py", "tests/test_tpu_smoke.py"],
+     "tests/test_viewer.py", "tests/test_chip_smoke.py"],
 ]
 
 

@@ -4,11 +4,11 @@ emission."""
 import numpy as np
 import pytest
 
-from horizonator_tpu.annotate import (Poi, annotate, build_annotation_scene,
+from horizonator_jax.annotate import (Poi, annotate, build_annotation_scene,
                                       load_pois)
-from horizonator_tpu.annotate.layout import (FONT_HEIGHT, stagger_labels,
+from horizonator_jax.annotate.layout import (FONT_HEIGHT, stagger_labels,
                                              string_width)
-from horizonator_tpu.annotate.occlusion import project_and_occlusion_test
+from horizonator_jax.annotate.occlusion import project_and_occlusion_test
 
 
 def _flat_scene(w=280, h=140):
@@ -137,9 +137,9 @@ def test_dome_shoulder_occlusion_semantics(tmp_path):
     import math
     import numpy as np
     import jax.numpy as jnp
-    from horizonator_tpu.render import RenderParams, render_panorama
-    from horizonator_tpu.render.crossing import k_cross_for
-    from horizonator_tpu.annotate.occlusion import project_and_occlusion_test
+    from horizonator_jax.render import RenderParams, render_panorama
+    from horizonator_jax.render.crossing import k_cross_for
+    from horizonator_jax.annotate.occlusion import project_and_occlusion_test
 
     n = 384
     cpd = 1200
@@ -190,7 +190,7 @@ def test_png_backend(tmp_path):
     """PNG annotation backend (beyond reference): labels rasterized into
     the bitmap; label pixels must appear in yellow near the POI."""
     import numpy as np
-    from horizonator_tpu.annotate import annotate, Poi
+    from horizonator_jax.annotate import annotate, Poi
     h, w = 120, 400
     img = np.zeros((h, w, 3), np.uint8)
     img[:, :, 0] = 255                       # blue sky (BGR)

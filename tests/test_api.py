@@ -7,12 +7,14 @@ import sys
 import numpy as np
 import pytest
 
+from horizonator_jax.compile_cache import cache_dir
+
 _CLI_ENV = {"PATH": "/usr/bin:/bin", "HOME": "/root",
             "JAX_PLATFORMS": "cpu",
-            "JAX_COMPILATION_CACHE_DIR": "/tmp/jax_test_cache3"}
+            "JAX_COMPILATION_CACHE_DIR": cache_dir()}
 
-from horizonator_tpu import horizonator
-from horizonator_tpu.dem import hgt
+from horizonator_jax import horizonator
+from horizonator_jax.dem import hgt
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +134,7 @@ def test_both_radii_error(dem_dir):
 def test_cli_png(dem_dir, tmp_path):
     out = tmp_path / "pano.png"
     r = subprocess.run(
-        [sys.executable, "-m", "horizonator_tpu.cli",
+        [sys.executable, "-m", "horizonator_jax.cli",
          "--width", "300", "--height", "100",
          "--image", str(out), "--dirdems", dem_dir,
          "--zfar", "25000", "--nsteps", "512",
@@ -154,7 +156,7 @@ def test_cli_full_circle_radius_180(dem_dir, tmp_path):
     here, so the CLI clamps the widened span at exactly 360)."""
     out = tmp_path / "full.png"
     r = subprocess.run(
-        [sys.executable, "-m", "horizonator_tpu.cli",
+        [sys.executable, "-m", "horizonator_jax.cli",
          "--width", "400", "--height", "120",
          "--image", str(out), "--dirdems", dem_dir,
          "--zfar", "25000", "--nsteps", "512",
@@ -179,7 +181,7 @@ def test_cli_svg_annotated(dem_dir, tmp_path):
     pf.write_text(json.dumps(pois))
     out = tmp_path / "pano.svg"
     r = subprocess.run(
-        [sys.executable, "-m", "horizonator_tpu.cli",
+        [sys.executable, "-m", "horizonator_jax.cli",
          "--width", "400", "--height", "150",
          "--image", str(out), "--dirdems", dem_dir, "--pois", str(pf),
          "--zfar", "25000", "--nsteps", "512",
@@ -196,12 +198,12 @@ def test_cli_svg_annotated(dem_dir, tmp_path):
 def test_cli_arg_validation(dem_dir):
     env = _CLI_ENV
     # --width without --image
-    r = subprocess.run([sys.executable, "-m", "horizonator_tpu.cli",
+    r = subprocess.run([sys.executable, "-m", "horizonator_jax.cli",
                         "--width", "100", "34", "-117", "0", "45"],
                        capture_output=True, text=True, cwd="/root/repo", env=env)
     assert r.returncode == 1 and "--image" in r.stderr
     # bad latitude
-    r = subprocess.run([sys.executable, "-m", "horizonator_tpu.cli",
+    r = subprocess.run([sys.executable, "-m", "horizonator_jax.cli",
                         "--width", "10", "--image", "/tmp/x.png",
                         "95", "-117", "0", "45"],
                        capture_output=True, text=True, cwd="/root/repo", env=env)
@@ -209,19 +211,19 @@ def test_cli_arg_validation(dem_dir):
     # --width WITH --pois-out alone is legal (the GIS batch mode reads it;
     # r3 rejected it with a misleading --image error): validation falls
     # through to the pois/pois-out pairing check instead
-    r = subprocess.run([sys.executable, "-m", "horizonator_tpu.cli",
+    r = subprocess.run([sys.executable, "-m", "horizonator_jax.cli",
                         "--width", "100", "--pois-out", "/tmp/x.geojson",
                         "34", "-117", "0", "45"],
                        capture_output=True, text=True, cwd="/root/repo", env=env)
     assert r.returncode == 1 and "--pois-out needs --pois" in r.stderr
     # --width 1 would divide by zero in the pixel-center conversion
-    r = subprocess.run([sys.executable, "-m", "horizonator_tpu.cli",
+    r = subprocess.run([sys.executable, "-m", "horizonator_jax.cli",
                         "--width", "1", "--image", "/tmp/x.png",
                         "34", "-117", "0", "45"],
                        capture_output=True, text=True, cwd="/root/repo", env=env)
     assert r.returncode == 1 and "width" in r.stderr
     # AZ_RADIUS_DEG 0 would divide by zero in the default-height formula
-    r = subprocess.run([sys.executable, "-m", "horizonator_tpu.cli",
+    r = subprocess.run([sys.executable, "-m", "horizonator_jax.cli",
                         "--width", "100", "--image", "/tmp/x.png",
                         "34", "-117", "0", "0"],
                        capture_output=True, text=True, cwd="/root/repo", env=env)
@@ -262,7 +264,7 @@ def test_dropped_guard_quiet_on_auto_budget(dem_dir):
 
 def test_render_batch_method(dem_dir):
     import numpy as np
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     h = horizonator(34.40, -117.45, 128, 64, dir_dems=dem_dir,
                     render_radius_m=20000.0)
     imgs, rngs = h.render_batch(-60, 60, [34.40, 34.42], [-117.45, -117.44],
@@ -297,7 +299,7 @@ def test_render_batch_multichip_through_api(dem_dir):
     alone -- an 8-virtual-device mesh through horizonator.render_batch."""
     import jax
     from jax.sharding import Mesh
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     h = horizonator(34.40, -117.45, 128, 64, dir_dems=dem_dir,
                     render_radius_m=20000.0)
     lats = [34.40, 34.42, 34.44]
@@ -340,7 +342,7 @@ def test_cli_ranges_output(dem_dir, tmp_path):
     rng_raw = tmp_path / "ranges.f32"
     for rf in (rng_npy, rng_raw):
         r = subprocess.run(
-            [sys.executable, "-m", "horizonator_tpu.cli",
+            [sys.executable, "-m", "horizonator_jax.cli",
              "--width", "200", "--height", "80",
              "--image", str(out), "--ranges", str(rf),
              "--dirdems", dem_dir, "--zfar", "20000", "--nsteps", "256",
@@ -382,7 +384,7 @@ def test_hillshade_render(dem_dir):
 def test_cli_hillshade(dem_dir, tmp_path):
     out = tmp_path / "hs.png"
     r = subprocess.run(
-        [sys.executable, "-m", "horizonator_tpu.cli",
+        [sys.executable, "-m", "horizonator_jax.cli",
          "--width", "200", "--height", "80", "--image", str(out),
          "--dirdems", dem_dir, "--zfar", "25000", "--nsteps", "512",
          "--hillshade", "--sun-az", "90", "--sun-alt", "35",

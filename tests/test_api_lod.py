@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from horizonator_tpu.dem import hgt
+from horizonator_jax.dem import hgt
 
 
 @pytest.fixture(scope="module")
@@ -31,7 +31,7 @@ LOD_VIEW = dict(lat=34.55, lon=-117.45, radius=45000.0)
 
 
 def test_auto_lod_long_range_render(srtm1_dir):
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     h = horizonator(LOD_VIEW["lat"], LOD_VIEW["lon"], 128, 64, SRTM1=True,
                     dir_dems=srtm1_dir, render_radius_m=LOD_VIEW["radius"])
     img, rng = h.render(10, 80, zfar=LOD_VIEW["radius"])
@@ -43,7 +43,7 @@ def test_auto_lod_long_range_render(srtm1_dir):
 
 
 def test_short_range_stays_on_window(srtm1_dir):
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     h = horizonator(34.05, -117.95, 64, 32, SRTM1=True, dir_dems=srtm1_dir,
                     render_radius_m=20000.0)
     img, rng = h.render(0, 90, zfar=20000.0)
@@ -54,7 +54,7 @@ def test_short_range_stays_on_window(srtm1_dir):
 def test_render_batch_auto_lod(srtm1_dir):
     """A long-clip BATCH through the public API must take the same LOD
     switch as the single render (it previously compiled the flat march)."""
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     la, lo, zf = LOD_VIEW["lat"], LOD_VIEW["lon"], LOD_VIEW["radius"]
     h = horizonator(la, lo, 128, 64, SRTM1=True, dir_dems=srtm1_dir,
                     render_radius_m=zf)
@@ -76,7 +76,7 @@ def test_hillshade_long_range_takes_lod(srtm1_dir):
     atlas fallback), so long hillshade clips paid linear step count; the
     color mip chain (lod.build_color_pyramid) removes that: the swap now
     happens and the render stays in-kernel shaded."""
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     la, lo, zf = LOD_VIEW["lat"], LOD_VIEW["lon"], LOD_VIEW["radius"]
     h = horizonator(la, lo, 128, 64, SRTM1=True, dir_dems=srtm1_dir,
                     render_radius_m=zf, hillshade=True)

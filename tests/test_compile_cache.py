@@ -14,7 +14,7 @@ import zlib
 
 import pytest
 
-from horizonator_tpu.compile_cache import sweep_cache_dir, _entry_is_foreign
+from horizonator_jax.compile_cache import sweep_cache_dir, _entry_is_foreign
 
 
 def test_entry_header_classifier():
@@ -66,7 +66,7 @@ def test_corrupt_entry_degrades_to_miss(tmp_path):
     prog = (
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from horizonator_tpu.compile_cache import harden_cache\n"
+        "from horizonator_jax.compile_cache import harden_cache\n"
         f"harden_cache({str(cache)!r})\n"
         f"jax.config.update('jax_compilation_cache_dir', {str(cache)!r})\n"
         "jax.config.update('jax_persistent_cache_min_compile_time_secs',"

@@ -1,6 +1,7 @@
 """Crossing (supercover DDA) sampler vs the uniform-step reference sampler.
 
-The crossing path is the fast TPU sampler; the step path at dense spacing is
+The crossing path is the gather oracle of the fast sampler; the step path at
+dense spacing is
 its oracle (SURVEY.md section 4: CPU-vs-fast-path equality testing replaces
 the reference's disabled #if-0 A/B paths)."""
 
@@ -11,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from horizonator_tpu.render import RenderParams, render_panorama
-from horizonator_tpu.render.raymarch import horizon_profile
-from horizonator_tpu.render.crossing import (
+from horizonator_jax.render import RenderParams, render_panorama
+from horizonator_jax.render.raymarch import horizon_profile
+from horizonator_jax.render.crossing import (
     pack_scene, march_crossing, horizon_crossing, k_cross_for,
     crossing_geometry)
 

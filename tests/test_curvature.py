@@ -14,10 +14,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from horizonator_tpu import geometry
-from horizonator_tpu.render import RenderParams, render_panorama
-from horizonator_tpu.render.crossing import k_cross_for
-from horizonator_tpu.render.window import march_window
+from horizonator_jax import geometry
+from horizonator_jax.render import RenderParams, render_panorama
+from horizonator_jax.render.crossing import k_cross_for
+from horizonator_jax.render.window import march_window
 
 CPD = 1200
 
@@ -139,7 +139,7 @@ def test_render_and_project_agree_with_curvature():
 
 def test_samplers_agree_with_curvature():
     # window kernel == crossing sampler under the same curv
-    from horizonator_tpu.render.crossing import march_crossing, pack_scene
+    from horizonator_jax.render.crossing import march_crossing, pack_scene
     rng = np.random.default_rng(7)
     n = 192
     jj, ii = np.meshgrid(np.arange(n, dtype=np.float32),
@@ -160,7 +160,7 @@ def test_samplers_agree_with_curvature():
 
 def test_api_curvature_modes(tmp_path):
     from tests.conftest import make_synthetic_dem_dir
-    import horizonator_tpu
+    import horizonator_jax
 
     def scene(lat, lon):
         peak = 1500.0 * np.exp(-((lat - 34.6) ** 2 + (lon + 117.4) ** 2)
@@ -170,7 +170,7 @@ def test_api_curvature_modes(tmp_path):
     demdir = make_synthetic_dem_dir(tmp_path, {(34, -118): scene})
     imgs = {}
     for mode in ("none", "refracted"):
-        h = horizonator_tpu.horizonator(
+        h = horizonator_jax.horizonator(
             34.40, -117.45, 256, 128, dir_dems=demdir,
             render_radius_m=30000.0, curvature=mode)
         img, rngs = h.render(0.0, 60.0)

@@ -10,10 +10,10 @@ import math
 import numpy as np
 import pytest
 
-from horizonator_tpu.dem import (SRTM3_EDGE, DemMosaic, cells_per_deg,
+from horizonator_jax.dem import (SRTM3_EDGE, DemMosaic, cells_per_deg,
                                  hgt_filename, load_mosaic,
                                  radius_cells_from_m)
-from horizonator_tpu.dem import hgt
+from horizonator_jax.dem import hgt
 
 
 def test_hgt_filename_hemispheres():
@@ -207,7 +207,7 @@ class TestDemAutoDownload:
         import gzip
         import io
         import zipfile
-        from horizonator_tpu.dem.mosaic import load_mosaic
+        from horizonator_jax.dem.mosaic import load_mosaic
 
         raw = self._tile_bytes(321)
         if wrap == "gz":
@@ -251,7 +251,7 @@ class TestDemAutoDownload:
         the wrong tile's elevations would be silently cached forever."""
         import io
         import zipfile
-        from horizonator_tpu.dem.mosaic import load_mosaic
+        from horizonator_jax.dem.mosaic import load_mosaic
 
         zb = io.BytesIO()
         with zipfile.ZipFile(zb, "w") as z:
@@ -276,7 +276,7 @@ class TestDemAutoDownload:
         degrade to sea+warning, never cache an arbitrary member."""
         import io
         import zipfile
-        from horizonator_tpu.dem.mosaic import load_mosaic
+        from horizonator_jax.dem.mosaic import load_mosaic
 
         zb = io.BytesIO()
         with zipfile.ZipFile(zb, "w") as z:
@@ -296,7 +296,7 @@ class TestDemAutoDownload:
             srv.shutdown()
 
     def test_fetch_failure_degrades_to_sea(self, tmp_path, capsys):
-        from horizonator_tpu.dem.mosaic import load_mosaic
+        from horizonator_jax.dem.mosaic import load_mosaic
         srv, hits = self._serve({})   # 404 everything
         port = srv.server_address[1]
         try:
@@ -311,7 +311,7 @@ class TestDemAutoDownload:
             srv.shutdown()
 
     def test_api_srtm3_requires_url(self, tmp_path):
-        from horizonator_tpu import horizonator
+        from horizonator_jax import horizonator
         with pytest.raises(ValueError, match="dem_url_fmt"):
             horizonator(34.4, -117.5, 32, 16,
                         dir_dems=str(tmp_path / "dems"),

@@ -9,7 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from horizonator_tpu import geometry as G
+from horizonator_jax import geometry as G
 
 
 def test_unwrap_near_rad():
@@ -111,7 +111,7 @@ def test_az_window_full_circle_at_equal_endpoints():
     away from zero and lands on az0 + 2pi; jnp.round's half-to-even used to
     produce a zero span -> division by zero)."""
     import jax.numpy as jnp
-    from horizonator_tpu import geometry
+    from horizonator_jax import geometry
     az1u, center, scale = geometry.az_window_rad(jnp.float32(0.3),
                                                  jnp.float32(0.3))
     assert abs(float(az1u) - (0.3 + 2 * np.pi)) < 1e-5
@@ -121,7 +121,7 @@ def test_az_window_full_circle_at_equal_endpoints():
 def test_pixel_az_el_unwraps_wrapped_windows():
     """pick()/unproject must agree with the renderer for windows given as
     wrapped degrees (render(350, 10) == a 20-deg window across north)."""
-    from horizonator_tpu import geometry
+    from horizonator_jax import geometry
     az_w, el_w = geometry.pixel_az_el_rad(5.0, 3.0, 350.0, 10.0, 100, 50)
     az_n, el_n = geometry.pixel_az_el_rad(5.0, 3.0, 350.0, 370.0, 100, 50)
     assert abs(float(az_w) - float(az_n)) < 1e-6
@@ -132,15 +132,15 @@ def test_pixel_az_el_unwraps_wrapped_windows():
 
 
 def test_earth_radius_constants_agree():
-    from horizonator_tpu import geometry
-    from horizonator_tpu.dem import mosaic
+    from horizonator_jax import geometry
+    from horizonator_jax.dem import mosaic
     assert float(geometry.EARTH_RADIUS_M) == mosaic.EARTH_RADIUS_M
 
 
 def test_pixel_az_el_overwound_span():
     """render(0, 540) renders a 180-deg window (the unwrap lands spans in
     (0, 360]): pick/unproject must use the same normalized span."""
-    from horizonator_tpu import geometry
+    from horizonator_jax import geometry
     az_a, el_a = geometry.pixel_az_el_rad(20.0, 5.0, 0.0, 540.0, 100, 50)
     az_b, el_b = geometry.pixel_az_el_rad(20.0, 5.0, 0.0, 180.0, 100, 50)
     assert abs(float(az_a) - float(az_b)) < 1e-6
@@ -149,7 +149,7 @@ def test_pixel_az_el_overwound_span():
 
 def test_sun_position_anchors():
     """NOAA low-precision solar position against astronomical anchors."""
-    from horizonator_tpu.geometry import sun_position
+    from horizonator_jax.geometry import sun_position
     # equinox solar noon on the equator: sun near the zenith
     _, alt = sun_position(0.0, 0.0, "2026-03-20T12:07:00")
     assert alt > 86.0

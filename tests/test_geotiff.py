@@ -11,7 +11,7 @@ import struct
 import numpy as np
 import pytest
 
-from horizonator_tpu.geotiff import write_geotiff, cell_bounds
+from horizonator_jax.geotiff import write_geotiff, cell_bounds
 
 BOUNDS = (34.0, -118.0, 35.0, -117.0)   # lat_s, lon_w, lat_n, lon_e
 
@@ -103,7 +103,7 @@ def test_input_validation():
 
 def test_cell_bounds_matches_mosaic(tmp_path):
     from tests.conftest import make_synthetic_dem_dir
-    from horizonator_tpu.dem import load_mosaic
+    from horizonator_jax.dem import load_mosaic
 
     d = make_synthetic_dem_dir(tmp_path,
                                {(34, -118): lambda la, lo: 0 * (la + lo)})
@@ -127,7 +127,7 @@ def test_cli_viewshed(tmp_path):
     """--viewshed FILE.tif: the CLI's GIS raster path, georeferencing
     checked against the viewer position."""
     from tests.conftest import make_synthetic_dem_dir
-    from horizonator_tpu import cli
+    from horizonator_jax import cli
 
     def terrain(lat, lon):
         return 200 + 1800 * np.exp(-((lat - 34.47) ** 2 + (lon + 117.45) ** 2)
@@ -159,8 +159,8 @@ def test_viewshed_to_geotiff_end_to_end(rng):
     import math
     import jax.numpy as jnp
     from PIL import Image
-    from horizonator_tpu.ops import viewshed_grid
-    from horizonator_tpu.render import RenderParams
+    from horizonator_jax.ops import viewshed_grid
+    from horizonator_jax.render import RenderParams
 
     n = 192
     jj, ii = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")

@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from horizonator_tpu.render import render_panorama
-from horizonator_tpu.render.crossing import pack_scene, k_cross_for
-from horizonator_tpu.render.lod import (build_pyramid, lod_plan, march_lod,
+from horizonator_jax.render import render_panorama
+from horizonator_jax.render.crossing import pack_scene, k_cross_for
+from horizonator_jax.render.lod import (build_pyramid, lod_plan, march_lod,
                                         LevelSpec)
 from tests.test_crossing import make_dem, params_for, CPD
 
@@ -91,7 +91,7 @@ class TestLodMarch:
         assert len(plan) >= 2
         tan_l = march_lod(pyr, p, width=width, plan=plan, cells_per_deg=CPD,
                           lat_hint_deg=34.0)[1][:, -1]
-        from horizonator_tpu.render.window import march_window
+        from horizonator_jax.render.window import march_window
         tan_w = march_window(dem, p, width=width, k_cross=k,
                              cells_per_deg=CPD, lat_hint_deg=34.0)[1][:, -1]
         tl, tw = np.asarray(tan_l), np.asarray(tan_w)
@@ -108,8 +108,8 @@ class TestLodMarch:
         # ulps, colors near-exactly (a position ulp can flip a hat-boundary
         # texel on at most a trace of samples). Center and clamped
         # edge-viewer placements both covered.
-        import horizonator_tpu.render.lod as lod_mod
-        from horizonator_tpu.render.texture import (atlas_to_grid_colors,
+        import horizonator_jax.render.lod as lod_mod
+        from horizonator_jax.render.texture import (atlas_to_grid_colors,
                                                     prepare_color_planes)
         n = 512
         dem = make_dem(n, rough=4.0)
@@ -124,7 +124,7 @@ class TestLodMarch:
         rng_c = np.random.default_rng(11)
         cp2 = jnp.asarray(
             rng_c.integers(0, 256, (3, 2 * n, 2 * n)).astype(np.float32))
-        from horizonator_tpu.render.lod import build_color_pyramid
+        from horizonator_jax.render.lod import build_color_pyramid
         cpyr = build_color_pyramid(prepare_color_planes(cp2),
                                    1 + max(s.level for s in plan), n)
         for vj, vi in ((256.3, 255.8), (40.2, 470.6)):

@@ -12,7 +12,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from horizonator_tpu.ops.los import (sightline, intervisible,
+from horizonator_jax.ops.los import (sightline, intervisible,
                                      intervisibility_matrix)
 
 CPD = 1200                                    # SRTM3 cells/deg
@@ -139,7 +139,7 @@ def test_matrix_diag_symmetry_and_pairwise_consistency(rng):
 @pytest.fixture(scope="module")
 def api_scene(tmp_path_factory):
     from tests.conftest import make_synthetic_dem_dir
-    from horizonator_tpu import horizonator
+    from horizonator_jax import horizonator
 
     def terrain(lat, lon):
         z = 200 + 0 * lat

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from horizonator_tpu.render import render_panorama, RenderParams
-from horizonator_tpu.render.mesh import render_mesh
-from horizonator_tpu.render.crossing import k_cross_for
+from horizonator_jax.render import render_panorama, RenderParams
+from horizonator_jax.render.mesh import render_mesh
+from horizonator_jax.render.crossing import k_cross_for
 from tests.test_crossing import make_dem, params_for, CPD
 
 
@@ -101,9 +101,9 @@ def test_reference_scale_parity_config1():
     profile max error <= 1 px."""
     import math
     import time
-    from horizonator_tpu.render.mesh import render_mesh_tiled
-    from horizonator_tpu.render import render_panorama, RenderParams
-    from horizonator_tpu.render.crossing import k_cross_for
+    from horizonator_jax.render.mesh import render_mesh_tiled
+    from horizonator_jax.render import render_panorama, RenderParams
+    from horizonator_jax.render.crossing import k_cross_for
 
     n = 1201
     jj, ii = np.meshgrid(np.arange(n, dtype=np.float32),

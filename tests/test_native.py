@@ -6,8 +6,8 @@ import time
 import numpy as np
 import pytest
 
-from horizonator_tpu import _native
-from horizonator_tpu.dem import hgt, load_mosaic
+from horizonator_jax import _native
+from horizonator_jax.dem import hgt, load_mosaic
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +50,7 @@ def test_mosaic_native_vs_numpy_paths(tmp_path, monkeypatch):
 
     m_native = load_mosaic(35.0, -117.0, render_radius_cells=300,
                            datadir=str(d))
-    monkeypatch.setenv("HORIZONATOR_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("HORIZONATOR_NO_NATIVE", "1")
     monkeypatch.setattr(_native, "_tried", False)
     monkeypatch.setattr(_native, "_lib", None)
     m_numpy = load_mosaic(35.0, -117.0, render_radius_cells=300,

@@ -5,9 +5,9 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from horizonator_tpu.dem.paging import PagedWindow, fly
-from horizonator_tpu.render import RenderParams, render_panorama
-from horizonator_tpu.render.crossing import k_cross_for
+from horizonator_jax.dem.paging import PagedWindow, fly
+from horizonator_jax.render import RenderParams, render_panorama
+from horizonator_jax.render.crossing import k_cross_for
 from tests.test_crossing import make_dem, CPD
 
 

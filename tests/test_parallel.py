@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from horizonator_tpu.parallel import (horizon_batch, make_sharded_horizon,
+from horizonator_jax.parallel import (horizon_batch, make_sharded_horizon,
                                       make_sharded_renderer, render_batch,
                                       render_path, stack_params)
-from horizonator_tpu.render import RenderParams, render_panorama
+from horizonator_jax.render import RenderParams, render_panorama
 
 CPD = 1200
 
@@ -103,8 +103,8 @@ def test_render_path():
 def test_sharded_window_sampler_matches_single():
     # The Pallas window kernel under shard_map (interpret mode on the CPU
     # mesh): wedge-sharded renders equal the single-device render.
-    from horizonator_tpu.parallel.sharding import make_sharded_renderer
-    from horizonator_tpu.render.crossing import k_cross_for
+    from horizonator_jax.parallel.sharding import make_sharded_renderer
+    from horizonator_jax.render.crossing import k_cross_for
     from tests.test_crossing import make_dem, params_for, CPD
 
     dem = make_dem(256, rough=4.0)
@@ -136,7 +136,7 @@ def test_graft_dryrun_multichip_gate():
 
 
 def test_broadcast_params_preserves_dtype_and_batched_leaves():
-    from horizonator_tpu.parallel.sharding import broadcast_params_batch
+    from horizonator_jax.parallel.sharding import broadcast_params_batch
     ps = stack_params([make_params(100.0, 100.0), make_params(110.0, 90.0)])
     # a hand-built batch commonly leaves defaulted scalar fields rank-0;
     # broadcasting must not force-cast other dtypes to float32
@@ -154,7 +154,7 @@ def test_render_path_textured():
     """Fly-throughs carry the in-kernel texture (reference .render()
     textures every call; batches/paths must too)."""
     from tests.test_crossing import make_dem as make_dem_c, params_for
-    from horizonator_tpu.render.crossing import k_cross_for
+    from horizonator_jax.render.crossing import k_cross_for
     dem = make_dem_c(256, rough=4.0)
     d = np.asarray(dem)
     vz = float(d[127:129, 128:130].max()) + 5.0
@@ -183,7 +183,7 @@ def test_render_path_textured():
 
 def test_viewshed_sweep_mesh_matches_single():
     from jax.sharding import Mesh
-    from horizonator_tpu.ops import viewshed_sweep
+    from horizonator_jax.ops import viewshed_sweep
     from tests.test_crossing import make_dem as make_dem_c
     dem = make_dem_c(192, rough=4.0)
     pts = np.stack(np.meshgrid(np.linspace(60, 130, 4),

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh
 import pytest
 
-from horizonator_tpu.render.crossing import (pack_scene, horizon_crossing,
+from horizonator_jax.render.crossing import (pack_scene, horizon_crossing,
                                              k_cross_for)
-from horizonator_tpu.parallel.regions import make_region_sharded_horizon
+from horizonator_jax.parallel.regions import make_region_sharded_horizon
 from tests.test_crossing import make_dem, params_for, CPD
 
 
@@ -125,8 +125,8 @@ def test_region_sharded_full_panorama_matches_single(mesh_kw):
     pmax-combined tanel is bitwise the single-device march's, so the
     render must match the sampler='crossing' single-device render
     EXACTLY (same resolve on identical input)."""
-    from horizonator_tpu.parallel.regions import make_region_sharded_renderer
-    from horizonator_tpu.render import render_panorama
+    from horizonator_jax.parallel.regions import make_region_sharded_renderer
+    from horizonator_jax.render import render_panorama
 
     dem = make_dem(256, rough=6.0)
     d_np = np.asarray(dem)
@@ -170,7 +170,7 @@ def test_region_window_horizon_bitwise_single_window():
     march's (integer-origin subtraction below 2^24 is exact, zero-hat
     window rows contribute exact +0.0, and bands partition the valid
     sample set with idempotent overlap)."""
-    from horizonator_tpu.render.window import march_window
+    from horizonator_jax.render.window import march_window
 
     dem = make_dem(256, rough=6.0)
     d_np = np.asarray(dem)
@@ -196,7 +196,7 @@ def test_region_window_horizon_bitwise_single_window():
 def test_region_window_horizon_edge_viewers(viewer_j):
     # band-edge viewers: near band + fabricated last-band halo both route
     # through march_window's j_hi/j_offset masking
-    from horizonator_tpu.render.window import march_window
+    from horizonator_jax.render.window import march_window
 
     dem = make_dem(256, rough=6.0)
     d_np = np.asarray(dem)
@@ -219,8 +219,8 @@ def test_region_window_horizon_edge_viewers(viewer_j):
 def test_region_window_full_panorama_bitwise():
     """Region-sharded renderer on the window sampler == single-device
     render_panorama(sampler='window') EXACTLY (identical resolve input)."""
-    from horizonator_tpu.parallel.regions import make_region_sharded_renderer
-    from horizonator_tpu.render import render_panorama
+    from horizonator_jax.parallel.regions import make_region_sharded_renderer
+    from horizonator_jax.render import render_panorama
 
     dem = make_dem(256, rough=6.0)
     d_np = np.asarray(dem)
@@ -245,8 +245,8 @@ def test_region_textured_panorama_bitwise():
     the elevation): image AND ranges must equal the single-device textured
     render exactly -- every sample is valid in exactly one band, so the
     masked color pmax is an exact reassembly."""
-    from horizonator_tpu.parallel.regions import make_region_sharded_renderer
-    from horizonator_tpu.render import render_panorama
+    from horizonator_jax.parallel.regions import make_region_sharded_renderer
+    from horizonator_jax.render import render_panorama
 
     dem = make_dem(256, rough=6.0)
     rng0 = np.random.default_rng(9)
@@ -283,7 +283,7 @@ def test_api_region_mesh_one_knob(tmp_path):
     hillshade variant also exercises the sharded half-cell color planes
     through the public API."""
     from conftest import make_synthetic_dem_dir
-    from horizonator_tpu import horizonator
+    from horizonator_jax import horizonator
 
     def peaks(lat, lon):
         return (200 + 2200 * np.exp(-((lat - 34.55) ** 2
@@ -346,9 +346,9 @@ def test_region_grid2x_panorama_bitwise(viewer_j):
     ColorPlanes2x; the crossing lines stay even 2x indices after the
     integer row rebase, so image AND ranges equal the single-device
     grid2x render exactly."""
-    from horizonator_tpu.parallel.regions import make_region_sharded_renderer
-    from horizonator_tpu.render import render_panorama
-    from horizonator_tpu.render.texture import prepare_color_planes
+    from horizonator_jax.parallel.regions import make_region_sharded_renderer
+    from horizonator_jax.render import render_panorama
+    from horizonator_jax.render.texture import prepare_color_planes
 
     dem = make_dem(256, rough=6.0)
     rng0 = np.random.default_rng(11)

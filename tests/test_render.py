@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from horizonator_tpu.render import RenderParams, render_panorama, horizon_profile
+from horizonator_jax.render import RenderParams, render_panorama, horizon_profile
 
 CPD = 1200
 CELL_M = 6371000.0 * np.pi / 180.0 / CPD   # ~92.66 m N-S cell at any lat
@@ -185,7 +185,7 @@ def test_hillshade_planes():
     directionality, and the half-cell index contract (plane index J =
     grid coordinate J/scale, even indices bitwise the cell values)."""
     import math
-    from horizonator_tpu.render.texture import hillshade_planes
+    from horizonator_jax.render.texture import hillshade_planes
     n = 64
     # flat ground: shade = ambient + (1-ambient)*sin(alt) everywhere
     flat = jnp.zeros((n, n), jnp.float32)

@@ -10,9 +10,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from horizonator_tpu.render.raymarch import (_first_crossing, _resolve_merge,
+from horizonator_jax.render.raymarch import (_first_crossing, _resolve_merge,
                                              _resolve_merge2)
-from horizonator_tpu.render import raymarch as _rm
+from horizonator_jax.render import raymarch as _rm
 
 # jit the eager helpers ONCE at module level: in production they run inside
 # jitted render paths, but called eagerly from tests each jnp op dispatches
@@ -73,7 +73,7 @@ def test_butterfly_concentrator_matches_stable_compaction():
     # (strictly increasing destinations = their ranks) must land at their
     # rank positions -- equivalent to a stable compaction / the lax.sort it
     # replaced. Exercise many random patterns and densities.
-    from horizonator_tpu.render.raymarch import _butterfly_route_front
+    from horizonator_jax.render.raymarch import _butterfly_route_front
     rng = np.random.default_rng(11)
     w, n_pow2 = 64, 512
     rank_bits = 10
@@ -210,28 +210,35 @@ def test_scatter_resolve_tex_payload_routing():
                 assert t[c, r] == tex[c, i[c, r]]
 
 
-def test_resolve_window_kernel_matches_rows():
-    # the fused Pallas resolve (interpret mode here; Mosaic parity is
-    # covered by the TPU smoke test) == _resolve_rows' packed branch:
-    # idx and ok bit-identical, alpha equal up to the two paths'
-    # (different) spare-bit quantization budgets
-    from horizonator_tpu.render.resolve_window import (resolve_fits,
-                                                       resolve_window)
-    m, _, aspect, _ = _data(w=20, k=90, h=128, seed=11)
-    el_k = jnp.arctan(m)
-    y_k = (1.0 - el_k * aspect) * (128 * 0.5) - 0.5
-    assert resolve_fits(90, 128)
-    i_r, a_r, ok_r = _resolve_rows(y_k, 128)
-    i_w, a_w, ok_w = resolve_window(y_k, 128)
-    np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_w))
-    np.testing.assert_array_equal(np.asarray(ok_r), np.asarray(ok_w))
+def _rows_alpha_quantum(k, h):
+    """Alpha quantum of _resolve_rows' packed unsort: the bits left in one
+    int32 after the rank and idx fields, capped at _A_CAP."""
+    a_bits = min(30 - h.bit_length() - k.bit_length(), _rm._A_CAP)
+    return 1.0 / ((1 << a_bits) - 1)
+
+
+@pytest.mark.parametrize("k,h", [(130, 100), (640, 128), (96, 640)])
+def test_rows_resolve_matches_oracles(k, h):
+    """idx is exactly the quantized row-space oracle's; ok and alpha agree
+    with the scatter resolve (full-precision alpha) up to the packed
+    unsort's alpha quantum."""
+    m, _, aspect, _ = _data(w=12, k=k, h=h, seed=k + h)
+    y_k = (1.0 - jnp.arctan(m) * aspect) * (h * 0.5) - 0.5
+    i_r, a_r, ok_r = _resolve_rows(y_k, h)
+    assert i_r.shape == (12, h)
+    np.testing.assert_array_equal(np.asarray(i_r), _oracle_idx(y_k, h))
+    i_s, a_s, ok_s = _resolve_scatter(y_k, h)
+    np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_s))
+    np.testing.assert_array_equal(np.asarray(ok_r), np.asarray(ok_s))
     okm = np.asarray(ok_r)
-    d = np.abs(np.asarray(a_r) - np.asarray(a_w))[okm]
-    assert d.max() <= 1.0 / 255  # both budgets are >= 8 alpha bits here
+    assert okm.any()
+    d = np.abs(np.asarray(a_r) - np.asarray(a_s))[okm]
+    assert d.max() <= 0.5 * _rows_alpha_quantum(k, h) + 1e-6
 
 
-def test_resolve_window_kernel_huge_rows():
-    from horizonator_tpu.render.resolve_window import resolve_window
+def test_rows_resolve_huge_rows_tall_image():
+    # clipped keys at a 128-row image, including a column entirely above
+    # the top row (every pixel sky) next to the 2^30/256 boundary
     k, h = 64, 128
     base = np.linspace(140.0, -10.0, k, dtype=np.float32)
     rows = np.stack([
@@ -242,159 +249,68 @@ def test_resolve_window_kernel_huge_rows():
         np.linspace(-300.0, -400.0, k, dtype=np.float32),
     ]).astype(np.float32)
     rows = np.minimum.accumulate(rows, axis=1)
-    i_r, a_r, ok_r = _resolve_rows(jnp.asarray(rows), h)
-    i_w, a_w, ok_w = resolve_window(jnp.asarray(rows), h)
-    np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_w))
-    np.testing.assert_array_equal(np.asarray(i_w), _oracle_idx(rows, h))
-    np.testing.assert_array_equal(np.asarray(ok_r), np.asarray(ok_w))
-    okm = np.asarray(ok_r)
-    d = np.abs(np.asarray(a_r) - np.asarray(a_w))[okm]
-    assert d.size == 0 or d.max() <= 1.0 / 255
+    idx, alpha, ok = _resolve_rows(jnp.asarray(rows), h)
+    np.testing.assert_array_equal(np.asarray(idx), _oracle_idx(rows, h))
+    a = np.asarray(alpha)
+    assert ((a >= 0) & (a <= 1)).all()
 
 
-def test_resolve_window_kernel_nonmonotone():
-    # monotone=False folds the running max into the kernel
-    from horizonator_tpu.render.resolve_window import resolve_window
-    rng = np.random.default_rng(13)
-    y = (rng.normal(size=(12, 150)) * 30 + 50).astype(np.float32)
-    ym = np.minimum.accumulate(y, axis=1)
-    i1, a1, o1 = resolve_window(jnp.asarray(y), 128, monotone=False)
-    i2, a2, o2 = resolve_window(jnp.asarray(ym), 128)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-    np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
-
-
-def test_resolve_window_kernel_unaligned_height():
-    # row-axis padding to the next 128-multiple is exact for any H
-    from horizonator_tpu.render.resolve_window import (resolve_fits,
-                                                       resolve_window)
-    m, _, aspect, _ = _data(w=12, k=80, h=100, seed=17)
-    el_k = jnp.arctan(m)
-    for h in (100, 37, 130):
-        y_k = (1.0 - el_k * aspect) * (h * 0.5) - 0.5
-        assert resolve_fits(80, h)
-        i_r, a_r, ok_r = _resolve_rows(y_k, h)
-        i_w, a_w, ok_w = resolve_window(y_k, h)
-        assert i_w.shape == (12, h)
-        np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_w))
-        np.testing.assert_array_equal(np.asarray(ok_r), np.asarray(ok_w))
-
-
-def test_resolve_window_kernel_tex_routing():
-    # textured kernel: each pixel row receives its first-crossing sample's
-    # color (adjacent equal-quantized-key ties excepted -- there any member
-    # of the tie run is sub-quantum-equivalent, so use distinct keys here)
-    from horizonator_tpu.render.resolve_window import resolve_window
-    rng = np.random.default_rng(23)
-    w, k, h = 8, 60, 130
-    y = np.sort(rng.uniform(-20.0, h + 20.0, size=(w, k)).astype(np.float32),
-                axis=1)[:, ::-1].copy()
-    # separate keys by > 1 quantum so the tie rule never kicks in
-    y = np.round(y * 16.0) / 16.0
-    y = np.minimum.accumulate(y, axis=1)
-    tex = rng.integers(0, 1 << 24, size=(w, k)).astype(np.int32)
-    idx, alpha, ok, tex_out = resolve_window(
-        jnp.asarray(y), h, tex=jnp.asarray(tex))
-    i = np.asarray(idx)
-    t = np.asarray(tex_out)
-    uniq = np.abs(np.diff(np.round(y * 256.0), axis=1)) >= 2
-    for c in range(w):
-        for r in range(h):
-            if i[c, r] < k:
-                kk = i[c, r]
-                if (kk == 0 or uniq[c, kk - 1]) and (kk == k - 1
-                                                     or uniq[c, kk]):
-                    assert t[c, r] == tex[c, kk], (c, r, kk)
-
-
-def test_resolve_window_kernel_tex_routing_nonpow2_m():
-    # the trimmed merged axis (m = kp + hp not a power of two: the merge/
-    # scans/fill run at m lanes, only the butterfly pads to n2) must carry
-    # the texture payload identically -- same oracle as the pow-2 test at
-    # (kp, hp) = (128, 256), m 384 vs n2 512
-    from horizonator_tpu.render.resolve_window import resolve_window, _plan
-    rng = np.random.default_rng(29)
-    w, k, h = 8, 60, 130
-    assert _plan(k, h)[6] != _plan(k, h)[5]   # m != n2: the trimmed regime
-    y = np.sort(rng.uniform(-20.0, h + 20.0, size=(w, k)).astype(np.float32),
-                axis=1)[:, ::-1].copy()
-    y = np.round(y * 16.0) / 16.0
-    y = np.minimum.accumulate(y, axis=1)
-    tex = rng.integers(0, 1 << 24, size=(w, k)).astype(np.int32)
-    idx, alpha, ok, tex_out = resolve_window(
-        jnp.asarray(y), h, tex=jnp.asarray(tex))
-    i = np.asarray(idx)
-    t = np.asarray(tex_out)
-    uniq = np.abs(np.diff(np.round(y * 256.0), axis=1)) >= 2
-    for c in range(w):
-        for r in range(h):
-            if i[c, r] < k:
-                kk = i[c, r]
-                if (kk == 0 or uniq[c, kk - 1]) and (kk == k - 1
-                                                     or uniq[c, kk]):
-                    assert t[c, r] == tex[c, kk], (c, r, kk)
-
-
-def test_resolve_fits_caps_vmem_footprint():
-    from horizonator_tpu.render.resolve_window import resolve_fits, _plan
-    # headline config stays on the kernel
-    assert resolve_fits(580, 1024)
-    # a user-forced huge --nsteps (e.g. SRTM1 without LOD) must fall back to
-    # the XLA resolve instead of failing in the Mosaic compiler: the merged
-    # width n2 would need several multi-MiB VMEM buffers live at once
-    assert not resolve_fits(10240, 1024)
-    assert _plan(10240, 1024)[5] > 4096
-
-
-@pytest.mark.parametrize("k,h", [(130, 100), (640, 128), (96, 640)])
-def test_resolve_window_widening_schedules(k, h):
-    """Sweep (K, H) pairs that hit different progressive-widening
-    schedules in the butterfly router (m from barely-over-a-block to
-    nearly n2): the kernel must stay bit-identical to _resolve_rows on
-    idx/ok at every width."""
-    from horizonator_tpu.render.resolve_window import (_plan, resolve_fits,
-                                                       resolve_window)
-    if not resolve_fits(k, h):
-        pytest.skip("outside the packing budget")
-    kp, hp, hb, kb, a_bits, n2, m = _plan(k, h)
-    m2, _, aspect, _ = _data(w=12, k=k, h=h, seed=k + h)
-    y_k = (1.0 - jnp.arctan(m2) * aspect) * (h * 0.5) - 0.5
+@pytest.mark.parametrize("h", [100, 37, 130])
+def test_rows_resolve_unaligned_heights(h):
+    # any image height, power of two or not, resolves exactly
+    m, _, aspect, _ = _data(w=12, k=80, h=h, seed=17)
+    y_k = (1.0 - jnp.arctan(m) * aspect) * (h * 0.5) - 0.5
     i_r, a_r, ok_r = _resolve_rows(y_k, h)
-    i_w, a_w, ok_w = resolve_window(y_k, h)
-    np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_w),
-                                  err_msg=f"m={m} n2={n2}")
-    np.testing.assert_array_equal(np.asarray(ok_r), np.asarray(ok_w))
-    okm = np.asarray(ok_r)
-    if okm.any():
-        d = np.abs(np.asarray(a_r) - np.asarray(a_w))[okm]
-        assert d.max() <= 1.0 / (1 << min(a_bits, 8)) + 1e-6
+    assert i_r.shape == a_r.shape == ok_r.shape == (12, h)
+    np.testing.assert_array_equal(np.asarray(i_r), _oracle_idx(y_k, h))
+
+
+@pytest.mark.parametrize("w,k,h", [(8, 60, 130), (8, 200, 64)])
+def test_rows_resolve_tex_routing(w, k, h):
+    # textured resolve: each pixel row receives its first-crossing
+    # sample's color (adjacent equal-quantized-key ties excepted -- there
+    # any member of the tie run is sub-quantum-equivalent, so the check
+    # skips them)
+    rng = np.random.default_rng(23 + k)
+    y = np.sort(rng.uniform(-20.0, h + 20.0, size=(w, k)).astype(np.float32),
+                axis=1)[:, ::-1].copy()
+    y = np.round(y * 16.0) / 16.0
+    y = np.minimum.accumulate(y, axis=1)
+    tex = rng.integers(0, 1 << 24, size=(w, k)).astype(np.int32)
+    idx, alpha, ok, tex_out = _resolve_rows(
+        jnp.asarray(y), h, tex=jnp.asarray(tex))
+    i = np.asarray(idx)
+    np.testing.assert_array_equal(i, _oracle_idx(y, h))
+    t = np.asarray(tex_out)
+    uniq = np.abs(np.diff(np.round(y * 256.0), axis=1)) >= 2
+    checked = 0
+    for c in range(w):
+        for r in range(h):
+            if i[c, r] < k:
+                kk = i[c, r]
+                if (kk == 0 or uniq[c, kk - 1]) and (kk == k - 1
+                                                     or uniq[c, kk]):
+                    assert t[c, r] == tex[c, kk], (c, r, kk)
+                    checked += 1
+    assert checked > 0
 
 
 def test_textured_plateau_delivers_first_crossing_color():
     """Regression (found by review): a running-min plateau's members share
     one quantized key, and the merge's tie order delivered an OCCLUDED
-    sample's color. The kernel's KV running min and the fallback's
-    argmax pre-propagation must both hand every covered pixel the color
-    of the true first-crossing sample."""
-    from horizonator_tpu.render.resolve_window import resolve_window
-    from horizonator_tpu.render.raymarch import _scan_shift_argmax
+    sample's color. The argmax pre-propagation must hand every covered
+    pixel the color of the true first-crossing sample."""
+    from horizonator_jax.render.raymarch import _scan_shift_argmax
     k, h, w = 256, 256, 4
     y = np.full((w, k), 240.0, np.float32)        # low far terrain
     y[:, 10] = 50.0                               # the visible crest
     y[:, 11:48] = 120.0                           # occluded behind it
     tex = np.broadcast_to(np.arange(k, dtype=np.int32) + 1, (w, k)).copy()
     yj, texj = jnp.asarray(y), jnp.asarray(tex)
-
-    # kernel path (raw rows, monotonized + argmin-colored in-kernel)
-    idx, alpha, ok, tex_hw = resolve_window(yj, h, tex=texj, monotone=False)
-    idx, tex_hw = np.asarray(idx), np.asarray(tex_hw)
     covered = (np.arange(h) >= 50) & (np.arange(h) < 240)
-    assert (idx[:, covered] == 10).all()
-    assert (tex_hw[:, covered] == 11).all()       # color of sample 10
 
-    # XLA fallback path: run-max rows + pre-propagated colors (jitted --
-    # the module-level _resolve_rows wrapper; eager these cost ~10 s)
+    # run-max rows + pre-propagated colors (jitted -- the module-level
+    # _resolve_rows wrapper; eager these cost ~10 s)
     tanel = -yj                                   # any order-reversing map
     run = jax.jit(lambda x: _rm._scan_shift(x, jnp.maximum, -3.0e38))(tanel)
     tex_eff = jax.jit(

@@ -2,8 +2,8 @@
 
 import os
 
-from horizonator_tpu.settings import Settings, DEFAULTS
-from horizonator_tpu.gpx import load_gpx
+from horizonator_jax.settings import Settings, DEFAULTS
+from horizonator_jax.gpx import load_gpx
 
 
 def test_settings_defaults_and_roundtrip(tmp_path):

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from horizonator_tpu import geometry
-from horizonator_tpu.ops.shadows import shadow_light, sun_hours
+from horizonator_jax import geometry
+from horizonator_jax.ops.shadows import shadow_light, sun_hours
 
 DEG = math.pi / 180.0
 
@@ -30,7 +30,7 @@ def _oracle_margin(z, cells_per_deg, lat_deg, sun_az_deg, sun_alt_deg,
     the op's documented direction semantic). Positive = shadowed.
     substep < 1 samples between the op's lattice steps (densified
     oracle for checking the step discretization itself)."""
-    from horizonator_tpu.ops.shadows import _ray_step
+    from horizonator_jax.ops.shadows import _ray_step
     nj, ni = z.shape
     dj1, di1, h1, _, _, _ = _ray_step(cells_per_deg, lat_deg, sun_az_deg, 16)
     tan_alt = math.tan(math.radians(sun_alt_deg))
@@ -160,7 +160,7 @@ def test_shadow_light_soft_edge_monotone():
 
 def test_hillshade_planes_cast_shadows():
     """cast_shadows only ever darkens, and does darken behind a wall."""
-    from horizonator_tpu.render.texture import hillshade_planes
+    from horizonator_jax.render.texture import hillshade_planes
     z = np.zeros((64, 64), np.float32)
     z[:, 50] = 400.0
     base = np.asarray(hillshade_planes(z, 1200, 34.0, sun_az_deg=90.0,
@@ -175,7 +175,7 @@ def test_hillshade_planes_cast_shadows():
 
 
 def test_api_shadows_requires_hillshade(tmp_path):
-    from horizonator_tpu.api import horizonator
+    from horizonator_jax.api import horizonator
     with pytest.raises(ValueError, match="hillshade"):
         horizonator(0.5, 0.5, 64, 32, dir_dems=str(tmp_path),
                     render_radius_cells=40, shadows=True)

@@ -13,8 +13,10 @@ import sys
 import numpy as np
 import pytest
 
-from horizonator_tpu import horizonator
-from horizonator_tpu import geojson as gj
+from horizonator_jax.compile_cache import cache_dir
+
+from horizonator_jax import horizonator
+from horizonator_jax import geojson as gj
 
 from conftest import make_synthetic_dem_dir
 
@@ -27,7 +29,7 @@ D_CREST = (WALL_LAT - VLAT) * M_PER_DEG      # ~27.8 km due north
 
 _CLI_ENV = {"PATH": "/usr/bin:/bin", "HOME": "/root",
             "JAX_PLATFORMS": "cpu",
-            "JAX_COMPILATION_CACHE_DIR": "/tmp/jax_test_cache3"}
+            "JAX_COMPILATION_CACHE_DIR": cache_dir()}
 
 
 def _wall(lat, lon):
@@ -174,7 +176,7 @@ def test_cli_horizon_out(dem_dir, tmp_path):
     pois_in.write_text(json.dumps(_POIS))
     pois_out = tmp_path / "peaks.geojson"
     r = subprocess.run(
-        [sys.executable, "-m", "horizonator_tpu.cli",
+        [sys.executable, "-m", "horizonator_jax.cli",
          "--dirdems", dem_dir, "--width", "33", "--zfar", "35000",
          "--horizon-out", str(out), "--pois", str(pois_in),
          "--pois-out", str(pois_out), str(VLAT), str(VLON), "0", "15"],
@@ -206,7 +208,7 @@ def test_cli_viewshed_composes_with_horizon_out(dem_dir, tmp_path):
     tif = tmp_path / "vis.tif"
     out = tmp_path / "horizon.geojson"
     r = subprocess.run(
-        [sys.executable, "-m", "horizonator_tpu.cli",
+        [sys.executable, "-m", "horizonator_jax.cli",
          "--dirdems", dem_dir, "--width", "33", "--zfar", "8000",
          "--viewshed", str(tif), "--viewshed-halfwidth", "24",
          "--horizon-out", str(out), str(VLAT), str(VLON), "0", "15"],

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from horizonator_tpu import tiles
-from horizonator_tpu.render.texture import (AtlasParams, OSM_TILE_PX,
+from horizonator_jax import tiles
+from horizonator_jax.render.texture import (AtlasParams, OSM_TILE_PX,
                                             tile_xy_from_latlon)
-from horizonator_tpu.annotate.peaks import parse_elements, peak_name
+from horizonator_jax.annotate.peaks import parse_elements, peak_name
 
 
 def test_tile_xy_known_values():
@@ -67,8 +67,8 @@ def test_build_atlas_layout(tmp_path):
 def test_textured_render_blend(tmp_path):
     """End-to-end --texture: terrain pixels must be the 0.7*tex + 0.3*shade
     blend (fragment.glsl:21), sky stays blue."""
-    from horizonator_tpu import horizonator
-    from horizonator_tpu.dem import hgt
+    from horizonator_jax import horizonator
+    from horizonator_jax.dem import hgt
 
     d = tmp_path / "dems"
     edge = hgt.SRTM3_EDGE
@@ -196,8 +196,8 @@ def test_textured_inkernel_matches_exact_gather(tmp_path):
     exact per-pixel atlas-gather path on a smooth (linear-gradient) texture:
     bilinear resample + lerp reproduce linear fields up to u8 rounding and
     the resolve's subpixel horizon-tie sample choice."""
-    from horizonator_tpu import horizonator
-    from horizonator_tpu.dem import hgt
+    from horizonator_jax import horizonator
+    from horizonator_jax.dem import hgt
 
     d = tmp_path / "dems"
     edge = hgt.SRTM3_EDGE
@@ -264,8 +264,8 @@ def test_halfcell_texture_beats_grid_on_checkerboard(tmp_path):
     (~150 m) sit between the two resolutions' Nyquist limits. Also the
     near-field test: where pixels are dense per texel the fast path must
     closely match 'exact'."""
-    from horizonator_tpu import horizonator
-    from horizonator_tpu.dem import hgt
+    from horizonator_jax import horizonator
+    from horizonator_jax.dem import hgt
 
     d = tmp_path / "dems"
     edge = hgt.SRTM3_EDGE
@@ -290,7 +290,7 @@ def test_halfcell_texture_beats_grid_on_checkerboard(tmp_path):
     h_grid = horizonator(lat, lon, 256, 128, texture_quality="grid", **kw)
     h_2x = horizonator(lat, lon, 256, 128, texture_quality="grid2x", **kw)
     h_ex = horizonator(lat, lon, 256, 128, texture_quality="exact", **kw)
-    from horizonator_tpu.render.texture import ColorPlanes2x
+    from horizonator_jax.render.texture import ColorPlanes2x
     assert isinstance(h_2x._color_planes, ColorPlanes2x)
     assert h_2x._color_planes.full_packed.shape[0] \
         == 2 * h_grid._color_planes.shape[1]
@@ -357,8 +357,8 @@ def test_textured_render_batch_auto_lod(tmp_path):
     samples a color MIP CHAIN in-kernel instead of falling back to
     per-pixel atlas gathers) and must match the single textured render()
     bit for bit."""
-    from horizonator_tpu import horizonator
-    from horizonator_tpu.dem import hgt
+    from horizonator_jax import horizonator
+    from horizonator_jax.dem import hgt
 
     d = tmp_path / "dems"
     edge = hgt.SRTM3_EDGE
@@ -401,9 +401,9 @@ def test_textured_lod_in_kernel_matches_atlas_fallback(tmp_path):
     geometry bitwise, colors close (the two sample the same texture at
     crossing positions vs refined hit positions, so a smooth field bounds
     the difference by the local gradient)."""
-    from horizonator_tpu import horizonator
-    from horizonator_tpu.dem import hgt
-    from horizonator_tpu.render import render_panorama, RenderParams
+    from horizonator_jax import horizonator
+    from horizonator_jax.dem import hgt
+    from horizonator_jax.render import render_panorama, RenderParams
     import jax.numpy as jnp
     import math
 

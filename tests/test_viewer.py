@@ -8,9 +8,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from horizonator_tpu import horizonator
-from horizonator_tpu.dem import hgt
-from horizonator_tpu.viewer import ViewerState, make_handler
+from horizonator_jax import horizonator
+from horizonator_jax.dem import hgt
+from horizonator_jax.viewer import ViewerState, make_handler
 
 from http.server import ThreadingHTTPServer
 
@@ -119,7 +119,8 @@ def test_live_resize(server):
 
 def test_debug_horizon_overlay(server):
     # the 'w' debug view: a green horizon trace appears over the render
-    # (the TPU answer to the reference's wireframe key, standalone.c:68-97)
+    # (this build's answer to the reference's wireframe key,
+    # standalone.c:68-97)
     url, state = server
     from PIL import Image
 
@@ -171,7 +172,7 @@ def test_vendored_map_widget_offline(server):
     from PIL import Image
     im = np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
     assert im.shape == (256, 256, 3) and (im == 200).all()
-    from horizonator_tpu import tiles as tiles_mod
+    from horizonator_jax import tiles as tiles_mod
     p = tiles_mod.tile_path(state.tiles_dir, state.tiles_name, 12, 7, 9)
     p.parent.mkdir(parents=True, exist_ok=True)
     Image.fromarray(np.full((256, 256, 3), 55, np.uint8)).save(p)
@@ -185,7 +186,7 @@ def test_vendored_map_widget_offline(server):
 
 
 def test_leaflet_tile_url_conversion():
-    from horizonator_tpu.viewer import leaflet_tile_url
+    from horizonator_jax.viewer import leaflet_tile_url
     # printf-style %d/%d/%d (z, x, y) -> Leaflet {z}/{x}/{y}
     assert (leaflet_tile_url("https://ex.org/t/%d/%d/%d.png")
             == "https://ex.org/t/{z}/{x}/{y}.png")

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from horizonator_tpu.ops import (horizon_sweep, viewshed_grid, viewshed_polar,
+from horizonator_jax.ops import (horizon_sweep, viewshed_grid, viewshed_polar,
                                  viewshed_sweep)
-from horizonator_tpu.render import RenderParams
+from horizonator_jax.render import RenderParams
 
 CPD = 1200
 CELL_M = 6371000.0 * np.pi / 180.0 / CPD
@@ -95,7 +95,7 @@ def test_viewshed_sweep_driver():
 def test_sweep_crossing_matches_step():
     import numpy as np
     import jax.numpy as jnp
-    from horizonator_tpu.ops import viewshed_sweep
+    from horizonator_jax.ops import viewshed_sweep
     from tests.test_crossing import make_dem
     dem = make_dem(192, rough=4.0)
     pts = np.stack(np.meshgrid(np.linspace(60, 130, 3),
@@ -113,7 +113,7 @@ def test_sweep_crossing_matches_step():
 
 def test_sweep_window_matches_crossing():
     import numpy as np
-    from horizonator_tpu.ops import viewshed_sweep
+    from horizonator_jax.ops import viewshed_sweep
     from tests.test_crossing import make_dem
     dem = make_dem(192, rough=4.0)
     pts = np.stack(np.meshgrid(np.linspace(70, 120, 2),
@@ -223,7 +223,7 @@ def test_sweep_rejects_packed_dem_for_crossing_samplers():
     default 'crossing' sampler was cast to f32 and marched as garbage
     elevations -- now a loud TypeError."""
     import pytest
-    from horizonator_tpu.render.raymarch import pack_dem_pairs
+    from horizonator_jax.render.raymarch import pack_dem_pairs
     rng = np.random.default_rng(3)
     dem = jnp.asarray(200.0 + 40.0 * rng.random((160, 160), np.float32))
     packed = pack_dem_pairs(dem)
@@ -260,7 +260,7 @@ def test_viewshed_grid_aligned_scene_matches():
     raster exactly: the aligned march's lanes are column-rolled by the
     per-direction residual, and the inversion adds the same closed-form
     r_d -- same logical sample, zero extra gathers."""
-    from horizonator_tpu.render.window import prepare_aligned_scene
+    from horizonator_jax.render.window import prepare_aligned_scene
     rng = np.random.default_rng(11)
     dem = jnp.asarray(300.0 + 200.0 * rng.random((192, 192), np.float32))
     p = params(96.3, 95.7, 620.0, zfar=6000.0)
@@ -276,7 +276,7 @@ def test_viewshed_grid_aligned_scene_matches():
 def test_viewshed_polar_aligned_scene_horizon_matches():
     """The aligned polar field is the same field with lanes column-rolled:
     per-column maxima (and the visible-count per column) are bitwise."""
-    from horizonator_tpu.render.window import prepare_aligned_scene
+    from horizonator_jax.render.window import prepare_aligned_scene
     rng = np.random.default_rng(12)
     dem = jnp.asarray(300.0 + 200.0 * rng.random((192, 192), np.float32))
     p = params(96.3, 95.7, 620.0, zfar=6000.0)
@@ -343,7 +343,7 @@ def test_viewshed_grid_shifted_center_registers():
 
 def test_viewshed_count_single_equals_grid():
     """One observer, window centered on it -> counts == the boolean grid."""
-    from horizonator_tpu.ops import viewshed_count
+    from horizonator_jax.ops import viewshed_count
     n = 512
     dem_np = np.zeros((n, n), np.float32)
     dem_np[300:302, :] = 400.0
@@ -366,7 +366,7 @@ def test_viewshed_count_flat_analytic():
     by it (grazing visibility on flat ground), so the counts equal the
     analytic ring-membership sum. Also proves pad weights are exact
     (3 observers, batch=2 -> one zero-weight pad)."""
-    from horizonator_tpu.ops import viewshed_count
+    from horizonator_jax.ops import viewshed_count
     n = 512
     dem = jnp.zeros((n, n), jnp.float32)
     pts = np.array([[236.0, 246.0], [276.0, 266.0], [256.0, 251.0]])
@@ -394,7 +394,7 @@ def test_viewshed_count_mesh_matches_single():
     """8-virtual-device mesh: counts identical to the unsharded run."""
     import jax
     from jax.sharding import Mesh
-    from horizonator_tpu.ops import viewshed_count
+    from horizonator_jax.ops import viewshed_count
     n = 512
     dem_np = np.zeros((n, n), np.float32)
     dem_np[280:283, :] = 300.0

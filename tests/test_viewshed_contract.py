@@ -16,8 +16,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from horizonator_tpu.ops import viewshed_grid
-from horizonator_tpu.render import RenderParams
+from horizonator_jax.ops import viewshed_grid
+from horizonator_jax.render import RenderParams
 
 CPD = 1200
 CELL_M = 6371000.0 * np.pi / 180.0 / CPD
@@ -211,7 +211,7 @@ def test_contract_with_dropped_and_window_sampler():
 def test_auto_method_and_fallbacks():
     """auto = contract on raw grids; packed scenes fall back to gather;
     an explicit contract on a packed scene fails loudly."""
-    from horizonator_tpu.render.crossing import pack_scene
+    from horizonator_jax.render.crossing import pack_scene
     n = 300
     d_np = smooth_dem(n)
     dem = jnp.asarray(d_np)

@@ -1,8 +1,9 @@
-"""Pallas window kernel vs the gather-based crossing sampler (its oracle).
+"""Table-driven window march vs the gather-based crossing sampler (its
+oracle).
 
 Both implement the same supercover-DDA geometry (crossing.CrossingGeom);
-the kernel must agree everywhere up to the crossing path's 0.5 m int16
-elevation quantization. Runs on the CPU backend (Pallas CPU lowering)."""
+the window march must agree everywhere up to the crossing path's 0.5 m
+int16 elevation quantization."""
 
 import functools
 import math
@@ -11,10 +12,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from horizonator_tpu.render import render_panorama
-from horizonator_tpu.render.crossing import (pack_scene, march_crossing,
+from horizonator_jax.render import render_panorama
+from horizonator_jax.render.crossing import (pack_scene, march_crossing,
                                              k_cross_for)
-from horizonator_tpu.render.window import march_window, window_size
+from horizonator_jax.render.window import march_window
 from tests.test_crossing import make_dem, params_for, CPD
 
 
@@ -61,12 +62,7 @@ class TestWindowKernel:
 
     @pytest.mark.parametrize("width", [800, 100, 48])
     def test_non_power_of_two_widths(self, width):
-        # Regression: pick_tile_w(800) once returned 50 (not a multiple of
-        # 8) and Mosaic rejected the output block. Any width must pick an
-        # aligned tile and agree with the oracle; results must also be
-        # tile_w-invariant.
-        from horizonator_tpu.render.window import pick_tile_w
-        assert pick_tile_w(width) % 8 == 0
+        # any width must agree with the oracle
         dem = make_dem(256)
         d_np = np.asarray(dem)
         vz = float(d_np[127:129, 128:130].max()) + 2.0
@@ -76,10 +72,6 @@ class TestWindowKernel:
         assert np.mean((hc > -1e30) == (hw > -1e30)) == 1.0
         vis = hc > -1e30
         assert np.abs(hc[vis] - hw[vis]).max() < 6e-3
-        _, rm8, _, _ = march_window(dem, p, width=width, k_cross=k,
-                                    cells_per_deg=CPD, lat_hint_deg=34.0,
-                                    tile_w=8)
-        np.testing.assert_array_equal(np.asarray(rm8[:, -1]), hw)
 
     def test_narrow_window_and_wrap(self):
         dem = make_dem(256, rough=8.0)
@@ -123,16 +115,9 @@ class TestWindowKernel:
         both = (rw > 0) & (rc > 0)
         assert np.median(np.abs(rw[both] - rc[both])) < 2.0
 
-    def test_window_size_static(self):
-        # static in (width, K, n, lat bucket) only
-        assert window_size(4096, 576, 3400, 34.3) == window_size(
-            4096, 576, 3400, 34.3)
-        assert window_size(1024, 576, 3400, 34.3) > window_size(
-            4096, 576, 3400, 34.3)
-
     def test_textured_render_through_window(self):
         import jax.numpy as jnp
-        from horizonator_tpu.render.texture import AtlasParams
+        from horizonator_jax.render.texture import AtlasParams
         dem = make_dem(192, rough=4.0)
         d = np.asarray(dem)
         vz = float(d[95:97, 96:98].max()) + 10.0
@@ -186,7 +171,7 @@ class TestWindowKernel:
         # band (default znear hint) and the bilinear fallback
         # (znear_hint_m=None), the two branches that fetch s=1 colors
         import jax.numpy as jnp
-        from horizonator_tpu.render.texture import pack_cell_colors
+        from horizonator_jax.render.texture import pack_cell_colors
         n = 192
         dem = make_dem(n, rough=4.0)
         vz = float(np.asarray(dem)[95:97, 96:98].max()) + 5.0
@@ -231,63 +216,6 @@ class TestWindowKernel:
         # crossing samples land ON grid lines where the half-cell checker
         # alternates along the line: both dark and bright survive
         assert (b > 180).any() and (b < 75).any()
-
-
-class TestWindowGuard:
-    """The static-VMEM-window self-guard (dists.dropped)."""
-
-    @staticmethod
-    @functools.partial(_jax.jit, static_argnames=("width", "k", "hint"))
-    def _march_jit(dem, p, width, k, hint):
-        _, rm, dists, _ = march_window(dem, p, width=width, k_cross=k,
-                                       cells_per_deg=CPD, lat_hint_deg=hint)
-        return rm[:, -1], dists.dropped
-
-    def _march(self, dem, p, width, k, hint):
-        rm, dropped = self._march_jit(dem, p, width, k, hint)
-        return np.asarray(rm), int(dropped)
-
-    def test_correct_hint_drops_nothing(self):
-        dem = make_dem(256)
-        vz = float(np.asarray(dem)[127:129, 128:130].max()) + 2.0
-        p = params_for(dem, 128.3, 127.6, vz)
-        k = k_cross_for(15000.0, CPD, 34.0, n=256)
-        _, dropped = self._march(dem, p, 512, k, 34.0)
-        assert dropped == 0
-
-    def test_wrong_lat_hint_fails_loudly(self):
-        # Viewer at latitude 85 with a step budget k sized for the equator
-        # (k_cross_for(lat=0)): near the row-dominance boundary the N
-        # crossing table's t swings across [-1, 1] within the one 64-column
-        # tile centered on north (az window shifted so north is mid-tile),
-        # so far samples span ~2 * zfar/cell_n positions -- beyond the
-        # lat-0-sized window. The guard must report dropped tiles instead
-        # of silently lowering horizons. A tall ridge is planted inside the
-        # dropped position range (az ~4 deg, d ~21 km).
-        n = 512
-        dem_np = np.array(make_dem(n, rough=4.0))
-        jj, ii = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-        dem_np += 2500.0 * np.exp(-((ii - 437) ** 2 + (jj - 482) ** 2)
-                                  / (2 * 6.0 ** 2)).astype(np.float32)
-        dem = jnp.asarray(dem_np)
-        vz = float(dem_np[255:257, 256:258].max()) + 2.0
-        p = params_for(dem, 256.3, 255.6, vz, az0=-168.75, az1=191.25,
-                       zfar=23000.0, lat=85.0)
-        k = k_cross_for(23000.0, CPD, 0.0, n=n)   # deliberately lat-0 budget
-        h_bad, dropped_bad = self._march(dem, p, 1024, k, 0.0)
-        assert dropped_bad > 0
-
-        # the correct hint covers everything and matches the gather oracle
-        h_good, dropped_good = self._march(dem, p, 1024, k, 85.0)
-        assert dropped_good == 0
-        hc = np.asarray(_march_c(pack_scene(dem), p, 1024, k))
-        vis = hc > -1e30
-        assert ((hc > -1e30) == (h_good > -1e30)).all()
-        assert np.abs(hc[vis] - h_good[vis]).max() < 6e-3
-        # and the undersized window really did lower horizons: the ridge
-        # vanishes from the wrong-hint march (the failure the guard
-        # exists to catch)
-        assert (h_bad < h_good - 1e-3).any()
 
 
 class TestNearPatch:
@@ -335,7 +263,7 @@ class TestNearPatch:
     def test_oversized_hint_falls_back_to_gathers(self):
         # znear 6 km needs a patch beyond NEAR_PATCH_CAP: march_window must
         # use the gather path (dropped == 0, oracle agreement), not drop
-        from horizonator_tpu.render.window import (NEAR_PATCH_CAP,
+        from horizonator_jax.render.window import (NEAR_PATCH_CAP,
                                                    near_patch_size)
         assert near_patch_size(6000.0, CPD, 34.0) > NEAR_PATCH_CAP
         dem = make_dem(256)
@@ -350,8 +278,8 @@ class TestNearPatch:
 
 class TestAlignedScene:
     """Prebuilt camera-independent crossing tables (window.AlignedScene):
-    the kernel DMAs from padded DEM views at 128-aligned lane offsets and
-    subtracts the sub-128 start residual from the lane index in-kernel --
+    the march gathers from padded DEM views at 128-aligned column bases
+    and subtracts the sub-128 start residual from the lane index --
     samples must be BITWISE the per-render-build march's, column-rolled by
     the residual, and the resolved (image, ranges) bitwise the unaligned
     render's."""
@@ -362,7 +290,7 @@ class TestAlignedScene:
 
     @staticmethod
     def _compare_rolled(base, al, extra_base=None, extra_al=None):
-        from horizonator_tpu.render.crossing import N_NEAR
+        from horizonator_jax.render.crossing import N_NEAR
         t0, t1 = np.asarray(base[0]), np.asarray(al[0])
         assert int(base[2].dropped) == 0 and int(al[2].dropped) == 0
         assert base[2].lane0 is None and al[2].lane0 is not None
@@ -386,7 +314,7 @@ class TestAlignedScene:
                     err_msg=f"tex column {w}")
 
     def test_bitwise_parity(self):
-        from horizonator_tpu.render.window import prepare_aligned_scene
+        from horizonator_jax.render.window import prepare_aligned_scene
         dem = make_dem(257)
         vz = float(np.asarray(dem)[120:122, 131:133].max()) + 2.0
         p = params_for(dem, 131.3, 120.7, vz, zfar=9000.0)
@@ -397,8 +325,8 @@ class TestAlignedScene:
         self._compare_rolled(base, al)
 
     def test_textured_bitwise_parity(self):
-        from horizonator_tpu.render.window import prepare_aligned_scene
-        from horizonator_tpu.render.texture import prepare_color_planes
+        from horizonator_jax.render.window import prepare_aligned_scene
+        from horizonator_jax.render.texture import prepare_color_planes
         n = 257
         dem = make_dem(n)
         rng = np.random.default_rng(1)
@@ -418,9 +346,9 @@ class TestAlignedScene:
         residual) must keep the aligned contract: same rolled-lane colors
         as the unaligned hybrid march -- and it must actually REPLACE the
         near colors (differ from the plain grid2x march)."""
-        from horizonator_tpu.render.crossing import N_NEAR
-        from horizonator_tpu.render.window import prepare_aligned_scene
-        from horizonator_tpu.render.texture import (
+        from horizonator_jax.render.crossing import N_NEAR
+        from horizonator_jax.render.window import prepare_aligned_scene
+        from horizonator_jax.render.texture import (
             prepare_color_planes, AtlasParams, tile_xy_from_latlon)
         n = 257
         dem = make_dem(n)
@@ -450,7 +378,7 @@ class TestAlignedScene:
         # the full (image, ranges) contract through render_panorama: d_of
         # consumes dists.lane0, the resolve sees column-rolled rows --
         # output must be bitwise the unaligned render's
-        from horizonator_tpu.render.window import prepare_aligned_scene
+        from horizonator_jax.render.window import prepare_aligned_scene
         dem = make_dem(257)
         vz = float(np.asarray(dem)[120:122, 131:133].max()) + 2.0
         p = params_for(dem, 131.3, 120.7, vz, zfar=9000.0)
@@ -467,7 +395,7 @@ class TestAlignedScene:
         np.testing.assert_array_equal(np.asarray(rng0), np.asarray(rng1))
 
     def test_undersized_scene_raises(self):
-        from horizonator_tpu.render.window import prepare_aligned_scene
+        from horizonator_jax.render.window import prepare_aligned_scene
         dem = make_dem(257)
         vz = float(np.asarray(dem)[120:122, 131:133].max()) + 2.0
         p = params_for(dem, 131.3, 120.7, vz)
@@ -478,7 +406,7 @@ class TestAlignedScene:
     def test_banded_grid_ignores_scene(self):
         # region-sharded band grids keep the per-render build: passing a
         # scene must silently fall back (lane0 None), not corrupt output
-        from horizonator_tpu.render.window import prepare_aligned_scene
+        from horizonator_jax.render.window import prepare_aligned_scene
         dem = make_dem(257)
         vz = float(np.asarray(dem)[120:122, 131:133].max()) + 2.0
         p = params_for(dem, 131.3, 120.7, vz, zfar=9000.0)
@@ -512,7 +440,7 @@ def test_far_edge_crossings_not_truncated():
 
 @pytest.mark.slow
 def test_fuzz_window_vs_crossing_oracle():
-    """Randomized differential test: the Pallas window march must agree
+    """Randomized differential test: the window march must agree
     with the gather-based crossing oracle (visibility exactly, tangents to
     the 0.5 m quantization class) over random terrain, viewer placements
     (including grid edges), azimuth windows (including wrap), and clip
@@ -570,8 +498,8 @@ def test_textured_render_parity_edge_viewers(viewer):
     EDGE viewers: the residuals r_d take extreme values there (cbase
     clipping), exercising the gap fill + d_of lane0 + resolve color
     routing end to end. Must be bitwise."""
-    from horizonator_tpu.render.window import prepare_aligned_scene
-    from horizonator_tpu.render.texture import prepare_color_planes
+    from horizonator_jax.render.window import prepare_aligned_scene
+    from horizonator_jax.render.texture import prepare_color_planes
     n = 257
     dem = make_dem(n)
     rng = np.random.default_rng(2)
@@ -590,3 +518,154 @@ def test_textured_render_parity_edge_viewers(viewer):
     img1, rng1 = render_panorama(dem, p, aligned_scene=scene, **kw)
     np.testing.assert_array_equal(np.asarray(img0), np.asarray(img1))
     np.testing.assert_array_equal(np.asarray(rng0), np.asarray(rng1))
+
+
+def _bruteforce_march(dem, p, width, k, *, j_offset=0, j_hi=None,
+                      colors=None):
+    """Plain float32 numpy reference of the window march's crossing
+    samples: each sample lerps the DEM (and, given ``colors`` (3, s*nj,
+    s*ni) B/G/R planes, each color channel at s*pos) along the grid line
+    it crosses. Rows are GLOBAL; the valid row band is [j_offset,
+    j_offset + j_hi]. Returns (tanel (W, k), valid (W, k), packed colors
+    or None)."""
+    from horizonator_jax.render.crossing import crossing_geometry
+    f32 = np.float32
+    z = np.asarray(dem, f32)
+    nj, ni = z.shape
+    j_hi = nj - 1 - j_offset if j_hi is None else j_hi
+    geo = crossing_geometry(p, width=width, cells_per_deg=CPD)
+    a, t, e, scale = (np.asarray(getattr(geo, n), f32)[:, None]
+                      for n in ("a", "t", "e", "scale"))
+    jd = np.asarray(geo.j_dom)[:, None]
+    ax0 = np.asarray(geo.axis0).astype(f32)[:, None]
+    sgn = np.asarray(geo.sign).astype(f32)[:, None]
+    m = np.arange(k, dtype=f32)[None, :]
+    pos = a + m * t
+    axis = ax0 + m * sgn
+    d = (m + e) * scale
+    row = np.where(jd, axis, pos)
+    col = np.where(jd, pos, axis)
+    valid = ((row >= j_offset) & (row <= j_offset + j_hi)
+             & (col >= 0) & (col <= ni - 1)
+             & (d >= float(p.znear)) & (d <= float(p.zfar)))
+    # the lerp runs along the cross axis of the line each sample crosses
+    r0 = np.clip(np.floor(row), 0, nj - 1).astype(int)
+    c0 = np.clip(np.floor(col), 0, ni - 1).astype(int)
+    r1 = np.where(jd, r0, np.minimum(r0 + 1, nj - 1))
+    c1 = np.where(jd, np.minimum(c0 + 1, ni - 1), c0)
+    fr = pos - np.floor(pos)
+    zs = (f32(1) - fr) * z[r0, c0] + fr * z[r1, c1]
+    tanel = np.where(valid, (zs - float(p.viewer_z)) / d, -3.0e38)
+    tex = None
+    if colors is not None:
+        cpl = np.asarray(colors, f32)
+        s = cpl.shape[1] // nj
+        rs, cs = row * s, col * s
+        cr0 = np.floor(rs).astype(int)
+        cc0 = np.floor(cs).astype(int)
+        cf = np.where(jd, cs - cc0, rs - cr0)
+        cr0 = np.clip(cr0, 0, s * nj - 1)
+        cc0 = np.clip(cc0, 0, s * ni - 1)
+        cr1 = np.where(jd, cr0, np.minimum(cr0 + 1, s * nj - 1))
+        cc1 = np.where(jd, np.minimum(cc0 + 1, s * ni - 1), cc0)
+        chans = [np.clip(np.round((f32(1) - cf) * cpl[c][cr0, cc0]
+                                  + cf * cpl[c][cr1, cc1]), 0, 255)
+                 .astype(np.int64) for c in range(3)]            # B, G, R
+        tex = np.where(valid, (chans[2] << 16) | (chans[1] << 8) | chans[0],
+                       0)
+    return tanel, valid, tex
+
+
+class TestBruteForceReference:
+    """The XLA window march against a plain numpy lerp of the grid lines
+    its samples cross: the table build, direction mapping and reversed
+    tables must pick exactly the cells a direct evaluation picks."""
+
+    def _check(self, tanel, tex, ref, n_near, j_hi_rows=None):
+        from horizonator_jax.render.crossing import NEG_BIG
+        t_ref, v_ref, tex_ref = ref
+        k = t_ref.shape[1]
+        tm = np.asarray(tanel)[:, n_near:n_near + k]
+        v_m = tm > NEG_BIG / 2
+        assert np.mean(v_m == v_ref) > 0.999
+        both = v_m & v_ref
+        assert both.sum() > 1000
+        np.testing.assert_allclose(tm[both], t_ref[both], atol=2e-5)
+        if tex_ref is not None:
+            xm = np.asarray(tex)[:, n_near:n_near + k]
+            diff = np.stack([np.abs(((xm >> s) & 0xff)
+                                    - ((tex_ref >> s) & 0xff))
+                             for s in (0, 8, 16)])[:, both]
+            # lerp weights in f32 on both sides; a .5 tie may round apart
+            assert diff.max() <= 1 and (diff == 0).mean() > 0.99
+
+    @pytest.mark.parametrize("viewer,width", [((128.3, 127.6), 512),
+                                              ((6.2, 250.0), 300)])
+    def test_untextured(self, viewer, width):
+        dem = make_dem(256, rough=12.0)
+        vz = float(np.asarray(dem)[int(viewer[1]), int(viewer[0])]) + 30.0
+        p = params_for(dem, *viewer, vz, zfar=12000.0)
+        k = k_cross_for(12000.0, CPD, 34.0, n=256)
+        tanel, _, dists, _ = march_window(dem, p, width=width, k_cross=k,
+                                          cells_per_deg=CPD,
+                                          lat_hint_deg=34.0)
+        ref = _bruteforce_march(dem, p, width, tanel.shape[1] - dists.n_near)
+        self._check(tanel, None, ref, dists.n_near)
+
+    @pytest.mark.parametrize("scale", [1, 2])
+    def test_textured(self, scale):
+        n = 192
+        dem = make_dem(n, rough=8.0)
+        vz = float(np.asarray(dem)[95, 96]) + 20.0
+        p = params_for(dem, 96.3, 95.7, vz, zfar=8000.0)
+        k = k_cross_for(8000.0, CPD, 34.0, n=n)
+        rng = np.random.default_rng(11 + scale)
+        colors = rng.integers(0, 256, (3, scale * n, scale * n)).astype(
+            np.float32)
+        tanel, _, dists, _, tex = march_window(
+            dem, p, width=256, k_cross=k, cells_per_deg=CPD,
+            lat_hint_deg=34.0, color_planes=jnp.asarray(colors))
+        ref = _bruteforce_march(dem, p, 256, tanel.shape[1] - dists.n_near,
+                                colors=colors)
+        self._check(tanel, tex, ref, dists.n_near)
+
+    @pytest.mark.parametrize("band", [(0, 100), (96, 200), (150, 255)])
+    def test_banded(self, band):
+        # a row band [j0, j1] of the grid marched with j_offset/j_hi (the
+        # region-sharding local shape, one halo row): only samples whose
+        # row lies in the band are valid, with GLOBAL geometry
+        j0, j1 = band
+        dem = make_dem(256, rough=12.0)
+        vz = float(np.asarray(dem)[127, 128]) + 30.0
+        p = params_for(dem, 128.3, 127.6, vz, zfar=12000.0)
+        k = k_cross_for(12000.0, CPD, 34.0, n=256)
+        rows = dem[j0:min(j1 + 2, 256)]
+        tanel, _, dists, _ = march_window(
+            rows, p, width=512, k_cross=k, cells_per_deg=CPD,
+            lat_hint_deg=34.0, j_offset=jnp.int32(j0),
+            j_hi=jnp.float32(j1 - j0))
+        ref = _bruteforce_march(dem, p, 512, tanel.shape[1] - dists.n_near,
+                                j_offset=j0, j_hi=j1 - j0)
+        self._check(tanel, None, ref, dists.n_near)
+
+
+def test_no_module_imports_pallas():
+    """The package is plain XLA on the GPU and the CPU: no module imports
+    a Pallas dialect (a kernel written for one backend has no lowering on
+    the others)."""
+    import ast
+    import pathlib
+    import horizonator_jax
+    root = pathlib.Path(horizonator_jax.__file__).parent
+    bad = []
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            if any(nm.startswith("jax.experimental.pallas") for nm in names):
+                bad.append(str(path.relative_to(root)))
+    assert not bad, bad
